@@ -558,7 +558,7 @@ def _merge_adjacent_arrays(
     newest member's, so whether sorted segment i joins segment i-1's chain
     depends only on the ORIGINAL i-1 and i — the pass vectorizes as a
     pairwise joinability test + grouped first/last gather (the per-segment
-    python loop was part of the 17 s bb_apply floor at 830k headline rows).
+    python loop dominated bb_apply at ~830k rows).
     """
     order = np.lexsort((a, iv_idx))
     iv_s, a_s, b_s, mem_s = iv_idx[order], a[order], b[order], member[order]
@@ -607,7 +607,7 @@ def merge_coordinate_rows(rows: List[np.ndarray]) -> List[np.ndarray]:
     joinability test + grouped first/last gather.
 
     Accepts a [R, 2n] matrix OR a list of rows and returns the same kind
-    (np.stack over ~580k row views cost 1.2 s at headline scale — the
+    (np.stack over ~580k row views is slow at genome scale — the
     progressive pipeline keeps the matrix form end-to-end)."""
     as_matrix = isinstance(rows, np.ndarray)
     if len(rows) == 0:
@@ -738,7 +738,7 @@ def add_unique_segments(
     (addUniqueSegments equivalent): regions unique to one genome.
 
     Coverage fills with a range-difference array per genome — the
-    per-row python slice loop was ~7M iterations at the headline scale."""
+    per-row python slice loop was ~7M iterations at genome scale."""
     n = ivs.n_seqs
     as_matrix = isinstance(rows, np.ndarray)
     if as_matrix:
@@ -785,8 +785,7 @@ def add_unique_segments(
     total = sum(len(st) for (_, st, _) in runs)
     M = np.zeros((total, 2 * n), np.int64)
     r0 = 0
-    # one bulk matrix instead of ~total tiny row allocations (the
-    # per-run loop was ~1.6 s of bb_rows at headline scale)
+    # one bulk matrix instead of ~total tiny row allocations
     for s, starts, ends in runs:
         M[r0 : r0 + len(starts), 2 * s] = starts
         M[r0 : r0 + len(starts), 2 * s + 1] = ends
@@ -810,7 +809,7 @@ def write_backbone_seq_file(rows: List[np.ndarray], out: Union[str, TextIO], n_s
     if len(rows) == 0:
         return
     M = rows if isinstance(rows, np.ndarray) else np.stack(rows)
-    # bulk tolist + join: ~5x the per-row generator at headline row counts
+    # bulk tolist + join instead of a per-row generator
     fh.write("\n".join("\t".join(map(str, r)) for r in M.tolist()))
     fh.write("\n")
 
@@ -946,7 +945,7 @@ def _apply_backbone_interval_bulk(
 ) -> None:
     """Vectorized apply for one interval whose (column-sorted) segments are
     DISJOINT: one bulk member mask + one fancy-index copy replace the
-    per-segment python slicing (bb_apply was 17 s of the round-4 headline).
+    per-segment python slicing.
     Byte-identical to _apply_backbone_interval_loop (pinned by
     tests/test_analysis.py::test_apply_backbone_bulk_equivalence)."""
     n, T = iv.aln.shape

@@ -128,6 +128,29 @@ class AlignmentScore:
         )
 
 
+def score_against_truths(
+    ivs: IntervalList,
+    seq_lengths: Sequence[int],
+    truths: Sequence[IntervalList],
+) -> AlignmentScore:
+    """Score every (0, i) projection of `ivs` against truths[i - 1], the
+    simulator's known alignment of genome 0 with genome i
+    (utils/simulate.enterobacteria_set).  One pass over `ivs` extracts all
+    (0, i) maps at once."""
+    amaps = pair_position_maps(
+        ivs, seq_lengths, pairs=[(0, i) for i in range(1, len(truths) + 1)]
+    )
+    pairs = {}
+    for i, truth in enumerate(truths, start=1):
+        cm = pair_position_maps(truth, [seq_lengths[0], seq_lengths[i]])[(0, 1)]
+        a = amaps[(0, i)]
+        tmask = cm != 0
+        tp = int(np.sum(tmask & (a == cm)))
+        fp = int(np.sum((a != 0) & (a != cm)))
+        pairs[(0, i)] = PairScore(tp=tp, fn=int(tmask.sum()) - tp, fp=fp)
+    return AlignmentScore(pairs)
+
+
 def coverage_maps(
     ivs: IntervalList, seq_lengths: Sequence[int]
 ) -> Dict[int, np.ndarray]:

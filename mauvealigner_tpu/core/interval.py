@@ -37,8 +37,7 @@ class Interval:
     def _unchecked(cls, starts: np.ndarray, aln: np.ndarray) -> "Interval":
         """Construct without the __post_init__ dtype coercion — for bulk
         emitters that already guarantee int64 starts / bool aln (the two
-        asarray calls cost ~1 s over the headline's ~600k backbone
-        intervals)."""
+        asarray calls add up over ~600k backbone intervals)."""
         iv = cls.__new__(cls)
         iv.starts = starts
         iv.aln = aln

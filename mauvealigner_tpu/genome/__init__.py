@@ -1,4 +1,4 @@
-"""L0: sequence I/O & genome model (TPU-native equivalent of libGenome).
+"""L0: sequence I/O & genome model (device-ready equivalent of libGenome).
 
 Reference surface reproduced (SURVEY.md §2.3 row `gnSequence`):
 multi-contig genomes, FASTA/GenBank/raw parse+write, revcomp filter,

@@ -1,6 +1,6 @@
 """Genome & contig model with 2-bit encoding for device kernels.
 
-TPU-native counterpart of libGenome's gnSequence (used at
+Device-ready counterpart of libGenome's gnSequence (used at
 reference src/mauveAligner.cpp:17, src/sortContigs.cpp:87-119).
 
 Design: a Genome owns

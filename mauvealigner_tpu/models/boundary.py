@@ -9,7 +9,7 @@ non-homologous overreach.  Without this step, the region between a genome end
 (or a neighboring LCB) and the outermost anchor is never aligned at all —
 a pure sensitivity loss.
 
-TPU design: flank regions of every interval edge are collected globally,
+Design: flank regions of every interval edge are collected globally,
 bucketed, and aligned in ONE batched closure pass (the same jitted Gotoh
 entry points and shape buckets as the inter-anchor closure, so no new
 compilations).  Uncovered runs shared by two neighboring intervals are split

@@ -9,7 +9,7 @@ Reference mechanisms reproduced (SURVEY.md §5.4; src/mauveAligner.cpp:533-589):
   * --merge-match-log: folds a journal produced elsewhere into the result
     (map-reduce over seed space by offset).
 
-TPU-native redesign: the reference journals byte offsets into its k-way
+Redesign: the reference journals byte offsets into its k-way
 merge; here the seed space is partitioned by canonical-mer range — the same
 partitioning used to shard match search across chips (parallel/sharded.py) —
 and each partition is one device call.

@@ -1,4 +1,4 @@
-"""Device compute kernels (JAX/XLA/Pallas).
+"""Device compute kernels (JAX/XLA).
 
 K1 merops    — spaced-mer pack + canonicalize + sort (SML construction)
 K2 matchops  — multi-way mer merge + multi-MUM enumeration

@@ -1,6 +1,6 @@
 """K4: hidden-Markov-model scans (homology HMM forward/backward).
 
-TPU-native replacement for libMems' HomologyHMM (reference call sites
+Replaces libMems' HomologyHMM (reference call sites
 src/progressiveMauve.cpp:226-260, src/repeatoire.cpp:1324).  The pair-HMM
 posterior decoding over alignment columns is expressed as log-space
 forward/backward scans, batched over many pairwise projections at once.
@@ -26,7 +26,7 @@ def _norm_matmul(A: jnp.ndarray, Bm: jnp.ndarray) -> jnp.ndarray:
     scan free of transcendentals — the log-space formulation spent its
     device time in exp/log inside every logsumexp, ~10 of them per [2, 2]
     combine."""
-    C = jnp.einsum("...ik,...kj->...ij", A, Bm)
+    C = jnp.einsum("...ik,...kj->...ij", A, Bm, precision=jax.lax.Precision.HIGHEST)
     m = jnp.max(C, axis=(-2, -1), keepdims=True)
     return C / jnp.maximum(m, jnp.float32(1e-30))
 
@@ -34,9 +34,8 @@ def _norm_matmul(A: jnp.ndarray, Bm: jnp.ndarray) -> jnp.ndarray:
 def _combine2(x, y):
     """2-state chain combine: element-wise 2x2 matrix product L @ R over
     four [B, T] entry lanes, renormalized to max 1.  The lane layout keeps
-    T in the TPU lane dimension — scanning [B, T, 2, 2] tensors instead
-    pads each trailing (2, 2) matrix to a (2, 128) tile, a 64x memory
-    blowup that OOMed HBM at the 32k-column bucket."""
+    the long T axis minor instead of scanning [B, T, 2, 2] tensors whose
+    tiny trailing (2, 2) matrices a tiled device layout pads."""
     xa, xb, xc, xd = x
     ya, yb, yc, yd = y
     ca = xa * ya + xb * yc
@@ -56,7 +55,7 @@ def _forward_backward_2state(
     lengths: jnp.ndarray,    # [B]
 ) -> jnp.ndarray:
     """S=2 specialization of forward_backward on four [B, T] entry lanes
-    (see _combine2 for why the matrix layout is untenable on TPU)."""
+    (see _combine2 for why not the matrix layout)."""
     B, T, _ = log_emit.shape
     step_ids = jnp.arange(T)
     pad_mask = step_ids[None, :] < lengths[:, None]  # [B, T]
@@ -118,7 +117,7 @@ def forward_backward(
 
     The production S=2 case routes to a lane-decomposed kernel: scanning
     [B, T, S, S] tensors puts the (S, S) matrix in the two minor (tiled)
-    dimensions, which the TPU pads to (8, 128) — 64x the HBM.
+    dimensions, which a tiled device layout pads.
     """
     B, T, S = log_emit.shape
     if S == 2:
@@ -138,7 +137,9 @@ def forward_backward(
         jnp.max(alpha0_raw, axis=-1, keepdims=True), jnp.float32(1e-30)
     )
     alpha0 = alpha0[:, None, :]                         # [B, 1, S]
-    alphas_rest = jnp.einsum("bok,btkj->btj", alpha0, prefix)  # [B, T-1, S]
+    alphas_rest = jnp.einsum(
+        "bok,btkj->btj", alpha0, prefix, precision=jax.lax.Precision.HIGHEST
+    )  # [B, T-1, S]
     alphas = jnp.concatenate([alpha0, alphas_rest], axis=1)    # [B, T, S]
 
     # backward: beta_t = A_{t+1} (x) ... (x) A_{T-1} (x) ones.  A reverse
@@ -254,8 +255,7 @@ def bucketed_decode(
 ):
     """Run many variable-length HMM decodes through the batched kernels.
 
-    Shapes are the scarce resource on the remote-compile TPU backend, so
-    jobs bucket by power-of-two padded length (capped at `max_cols`; longer
+    Every new shape costs a compile, so jobs bucket by power-of-two padded length (capped at `max_cols`; longer
     jobs must be pre-chunked by the caller) and power-of-two batch size,
     with a memory-based chunk cap (256 rows at the 65536-column maximum).
     Returns a list aligned with `log_emits`:

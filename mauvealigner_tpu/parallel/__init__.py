@@ -1,6 +1,6 @@
 """Distribution layer: mesh construction + sharded kernels.
 
-TPU-native replacement for the reference's distribution mechanisms (SURVEY.md
+Replaces the reference's distribution mechanisms (SURVEY.md
 §2 parallelism checklist): the file-based map-reduce over seed space
 (--match-log/--offset-log/--merge-match-log, src/mauveAligner.cpp:533-589),
 the per-LCB task split (--realign-lcb, src/mauveAligner.cpp:723-744) and the
@@ -10,7 +10,7 @@ missing MPI variant are all subsumed by SPMD sharding over a device mesh:
     sorts its block of window positions; the flagship N-way anchor search
     runs as two all-to-all phases (mer hash, then signature hash) with
     local-exact grouping and run merging;
-  * K3: inter-anchor DP tiles are batch-sharded across devices (the TPU
+  * K3: inter-anchor DP tiles are batch-sharded across devices (the
     analog of --realign-lcb task parallelism);
   * multi-process (DCN): the same shard_map kernels over a global mesh via
     parallel.multihost (jax.distributed; the mpiMauveAligner replacement).

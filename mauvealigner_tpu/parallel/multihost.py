@@ -3,9 +3,9 @@
 Reference analog: the MPI-distributed mpiMauveAligner whose sources are
 absent from the snapshot (projects/mpiMauveAligner.vcproj:118-122) and the
 file-based offset-partitioned match logs (src/mauveAligner.cpp:533-589).
-TPU-native replacement: the same `shard_map` kernels run unchanged over a
-GLOBAL mesh spanning processes — collectives ride ICI within a slice and
-DCN between hosts; no journal files, no MPI.
+Replacement: the same `shard_map` kernels run unchanged over a GLOBAL mesh
+spanning processes — collectives between the devices of a host and across
+hosts; no journal files, no MPI.
 
 Usage (per process):
     init_multihost(coordinator, num_processes, process_id)
@@ -18,8 +18,7 @@ back to every process, so all processes hold the identical MatchList
 (determinism across process counts).
 
 Tested cross-process on localhost (CPU Gloo backend,
-tests/test_multihost.py) — the same code path initializes over real DCN on
-a TPU pod.
+tests/test_multihost.py); the same code path initializes across hosts.
 """
 
 from __future__ import annotations

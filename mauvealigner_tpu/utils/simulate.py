@@ -123,3 +123,38 @@ def apply_inversion_with_truth(
         raise ValueError("inversion range not covered by a forward truth piece")
     out = IntervalList(genomes=[truth.genomes[0], g2], intervals=new_intervals)
     return g2, out
+
+
+def enterobacteria_set(
+    size: int, k: int, max_rate: float = 0.08, seed: int = 37
+) -> Tuple[List[Genome], List[IntervalList]]:
+    """An ancestor and k-1 derived genomes at enterobacteria-like divergence
+    (per-branch substitution rates 3%..max_rate, indels at a tenth of that);
+    every second derived genome carries one or two large inversions.
+    Returns (genomes, truths), truths[i] aligning genomes[0] with
+    genomes[i + 1]."""
+    rng = np.random.default_rng(seed)
+    anc = random_genome(rng, size, name="anc")
+    genomes, truths = [anc], []
+    # pairwise divergence between two derived genomes ~ sum of branch rates
+    rates = np.linspace(0.03, max_rate, k - 1)
+    for i, s in enumerate(rates):
+        d, t = evolve(
+            anc, rng, sub_rate=float(s), ins_rate=float(s) / 10,
+            del_rate=float(s) / 10, name=f"d{i}",
+        )
+        if i % 2 == 1:
+            for _ in range(1 + (i % 3 == 1)):
+                # redraw until the range sits inside one forward truth piece
+                # (a second inversion must not overlap the first)
+                for _attempt in range(20):
+                    span = int(rng.integers(size // 80, size // 10))
+                    lo = int(rng.integers(1000, len(d) - span - 1000))
+                    try:
+                        d, t = apply_inversion_with_truth(d, t, lo, lo + span)
+                        break
+                    except ValueError:
+                        continue
+        genomes.append(d)
+        truths.append(t)
+    return genomes, truths

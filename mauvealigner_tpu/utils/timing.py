@@ -15,20 +15,6 @@ from collections import OrderedDict
 from typing import Dict, Optional
 
 
-# --- speed-of-light estimates for one TPU v5e chip -------------------------
-# Gotoh wavefront (K3): per cell the kernel reads one bf16 skewed score and
-# writes one decision byte -> ~3 HBM bytes/cell; v5e HBM ~819 GB/s gives a
-# bandwidth roofline of ~270 Gcells/s.  The VPU side (~12 elementwise f32
-# ops/cell at ~4 Tops/s elementwise) lands at a comparable ~330 Gcells/s, so
-# ~270 GCUPS is the governing single-chip speed of light for this layout.
-TPU_DP_ROOFLINE_CELLS_S = 270e9
-# K1/K2 sort: jax.lax.sort is a bitonic network, ~log^2(n) passes over the
-# operand lanes (~12 bytes/entry live through the K2 sort).  At n = 2^23 that
-# is ~276 passes x 12 B = ~3.3 KB moved per entry; 819 GB/s -> ~250 M
-# entries/s as the sort-bound anchor-phase ceiling.
-TPU_SORT_ROOFLINE_ENTRIES_S = 250e6
-
-
 class PhaseTimer:
     def __init__(self) -> None:
         self.phases: "OrderedDict[str, float]" = OrderedDict()
@@ -110,10 +96,8 @@ class PhaseTimer:
             )
         entries = self.counters.get("k2_sort_entries")
         if anchor_time and entries:
-            util = entries / anchor_time / TPU_SORT_ROOFLINE_ENTRIES_S
             lines.append(
-                f"anchor-phase sort entries: {entries/anchor_time/1e6:.1f} M/s "
-                f"({util:.1%} of v5e sort roofline)"
+                f"anchor-phase sort entries: {entries/anchor_time/1e6:.1f} M/s"
             )
         # gapped DP throughput across all DP-driving phases
         dp_time = sum(
@@ -123,14 +107,24 @@ class PhaseTimer:
         )
         c = self.counters.get("dp_cells")
         if dp_time and c:
-            g = c / dp_time / 1e9
-            util = g * 1e9 / TPU_DP_ROOFLINE_CELLS_S
-            lines.append(
-                f"gapped DP throughput: {g:.3f} GCUPS "
-                f"({util:.1%} of v5e wavefront roofline "
-                f"{TPU_DP_ROOFLINE_CELLS_S/1e9:.0f} GCUPS)"
-            )
+            lines.append(f"gapped DP throughput: {c / dp_time / 1e9:.3f} GCUPS")
         return "\n".join(lines) + "\n"
+
+
+def card_info():
+    """Name and power limit of each NVIDIA card, as nvidia-smi reports them
+    (None without nvidia-smi).  A card set below its maximum power runs
+    slower under load, so every device measurement carries this line."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    return out.stdout.strip() or None
 
 
 # process-global default timer (cheap; aligners use it when none is given)

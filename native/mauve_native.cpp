@@ -1,6 +1,6 @@
 // mauve_native: native host runtime for mauvealigner_tpu.
 //
-// The TPU does the compute-heavy phases (sorts, DP, HMM scans); this module
+// The accelerator does the compute-heavy phases (sorts, DP, HMM scans); this module
 // covers the host-side hot paths the reference implements in C++ via
 // libGenome/libMems: FASTA parsing, 2-bit encoding, reverse complement, and
 // base-level maximal match extension (MemHash extension inner loop).

@@ -96,7 +96,7 @@ struct Match { i64 a_left0; i64 b_left0; i64 len; bool rev; };
 // extend_all disables the coverage skip (oracle mode): a spaced-seed window
 // whose span bridges a mismatch at a DON'T-CARE offset extends further than
 // the exact match preceding it on the same diagonal — the inexact-match
-// semantics libMems' spaced-seed extension has (and the TPU K2 reproduces);
+// semantics libMems' spaced-seed extension has (and the device K2 reproduces);
 // the skip would wrongly drop those.  Contained duplicates die in chain()'s
 // overlap cropping.  Measurement mode keeps the skip (strictly faster, so
 // the measured baseline stays a conservative lower bound).
@@ -178,7 +178,7 @@ static void find_mums(const std::vector<uint8_t>& A, const std::vector<uint8_t>&
 
 // --- oracle-mode match processing: exact ports of the pipeline's overlap
 // elimination and collinear greedy breakpoint elimination, so the emitted
-// columns are comparable position-for-position with the TPU output. ------
+// columns are comparable position-for-position with the JAX pipeline's output. ------
 
 // Crop `amt` match-space columns from the left (consume_left) or right of
 // match m.  A is always the forward reference component; B mirrors through
@@ -195,7 +195,7 @@ static void crop_match(Match& m, i64 amt, bool match_left) {
   m.len -= amt;
 }
 
-// Canonical row order shared with the TPU pipeline before overlap
+// Canonical row order shared with the JAX pipeline before overlap
 // elimination (core/match.MatchList.eliminate_overlaps): |A left|, |B left|,
 // signed B start (reverse sorts first), then length — the per-sequence
 // stable sorts inside the cascade break |left| ties by row order, so both
@@ -480,7 +480,7 @@ static const int GAP_OPEN = -400, GAP_EXT = -30;
 static const int NEG = -(1 << 28);
 
 // Full Gotoh with affine-state traceback over one gap; returns aligned
-// column count.  Decision byte layout matches the TPU kernel (ops/dp.py
+// column count.  Decision byte layout matches the device kernel (ops/dp.py
 // _gotoh_core): bits0-1 = H source (0 diag, 1 up/E-consume-A, 2 left/F),
 // bit2 = E opened from H at this cell, bit3 = F opened from H.  Tie policy
 // is the shared convention: diag > up > left; gap-open wins ties over
@@ -521,7 +521,7 @@ static i64 gotoh(const uint8_t* a, i64 m, const uint8_t* b, i64 n,
     }
   }
   // affine-state traceback (follows gap runs through the open bits, so the
-  // emitted path realizes the optimal score exactly like the TPU kernel)
+  // emitted path realizes the optimal score exactly like the device kernel)
   i64 i = m, j = n, cols = 0;
   int mode = 0;  // 0 = H, 1 = E (up run), 2 = F (left run)
   while (i > 0 || j > 0) {
@@ -682,7 +682,7 @@ static int nway_main(int argc, char** argv) {
   // without it the heavy default seed finds almost nothing at >= 10%
   // divergence and the "baseline" would skip 90% of the alignment work.
   // rec_pattern is a comma-separated WEIGHT:PATTERN table; per gap the
-  // weight is picked like the TPU recursion (min(log2(avg gap len),
+  // weight is picked like the JAX recursion (min(log2(avg gap len),
   // heavy-2), floor 5 — models/aligner.py recursive_anchor)
   std::vector<std::pair<int, std::string>> rec_seeds;  // (weight, pattern)
   {
@@ -716,7 +716,7 @@ static int nway_main(int argc, char** argv) {
   };
   recurse_gap = [&](const uint8_t* a, i64 la, const uint8_t* b, i64 lb,
                     int depth) {
-    // per-gap weight like the TPU recursion: log2(avg len) clamped to
+    // per-gap weight like the JAX recursion: log2(avg len) clamped to
     // [5, heavy-2]; pick the nearest table entry at or below it
     double avg = 0.5 * (double)(la + lb);
     int w = (int)(0.5 + log2(avg > 2 ? avg : 2.0));
@@ -815,7 +815,7 @@ int main(int argc, char** argv) {
   bool fork_closure = argc > 4 && strcmp(argv[4], "--fork-closure") == 0;
   // column-identity oracle mode: write the chained alignment's exact column
   // structure (anchor rows + per-gap op strings) for the golden diff
-  // against the TPU pipeline's XMFA (writer semantics it must match:
+  // against the JAX pipeline's XMFA (writer semantics it must match:
   // /root/reference/src/mauveAligner.cpp:702,750)
   const char* emit_path = nullptr;
   const char* emit_lcbs = nullptr;
@@ -844,7 +844,7 @@ int main(int argc, char** argv) {
 
   if (emit_lcbs) {
     // LCB-mode column oracle: overlap elimination + greedy breakpoint
-    // elimination keeping MULTIPLE blocks (the TPU MauveAligner's
+    // elimination keeping MULTIPLE blocks (the JAX MauveAligner's
     // determine_lcbs semantics with the default weight threshold
     // seed_weight*3*n_seqs, /root/reference/src/mauveAligner.cpp:648-656),
     // then per-LCB chain cropping + gap DP, reverse strand included.

@@ -1,11 +1,11 @@
 """BASELINE config 3 at REAL enterobacteria scale: 9 x ~4.6 Mbp genomes,
 10-20% pairwise divergence with inversions, full progressiveMauve on the
-TPU.  Emits one JSON line: warm wall-clock, per-phase split, and the
+default JAX device.  Emits one JSON line: warm wall-clock, per-phase split, and the
 simulation-oracle accuracy of every ancestor-derived pairwise projection
 (the truth survives the inversions via apply_inversion_with_truth).
 
 Usage: python scripts/bench_enterobacteria.py [genome_size] [n_genomes] [repeats]
-Defaults: 4_600_000 9 2 (first run pays cold remote compiles: minutes/shape).
+Defaults: 4_600_000 9 2 (the first run includes compilation).
 """
 
 import json
@@ -18,87 +18,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 
 
-def _cache_path(size, k, max_rate):
-    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                     ".bench_logs")
-    os.makedirs(d, exist_ok=True)
-    return os.path.join(d, f"entero_{size}_{k}_{max_rate}.npz")
-
-
-def _save_cache(path, genomes, truths):
-    from mauvealigner_tpu.core.interval import IntervalList
-
-    blobs = {"n_genomes": np.int64(len(genomes))}
-    for i, g in enumerate(genomes):
-        blobs[f"g{i}"] = g.seq
-    for t_i, t in enumerate(truths):
-        blobs[f"t{t_i}_n"] = np.int64(len(t.intervals))
-        for j, iv in enumerate(t.intervals):
-            blobs[f"t{t_i}_{j}_starts"] = iv.starts
-            blobs[f"t{t_i}_{j}_aln"] = np.packbits(iv.aln, axis=1)
-            blobs[f"t{t_i}_{j}_cols"] = np.int64(iv.aln.shape[1])
-    np.savez_compressed(path, **blobs)
-
-
-def _load_cache(path):
-    from mauvealigner_tpu.core.interval import Interval, IntervalList
-    from mauvealigner_tpu.genome.sequence import Genome
-
-    z = np.load(path)
-    n = int(z["n_genomes"])
-    names = ["anc"] + [f"d{i}" for i in range(n - 1)]
-    genomes = [Genome(z[f"g{i}"], name=names[i]) for i in range(n)]
-    truths = []
-    for t_i in range(n - 1):
-        ivs = []
-        for j in range(int(z[f"t{t_i}_n"])):
-            cols = int(z[f"t{t_i}_{j}_cols"])
-            aln = np.unpackbits(z[f"t{t_i}_{j}_aln"], axis=1)[:, :cols].astype(bool)
-            ivs.append(Interval(z[f"t{t_i}_{j}_starts"], aln))
-        truths.append(IntervalList(
-            genomes=[genomes[0], genomes[t_i + 1]], intervals=ivs
-        ))
-    return genomes, truths
-
-
 def build_genomes(size: int, k: int, max_rate: float = 0.08):
     from mauvealigner_tpu.utils import simulate
 
-    cache = _cache_path(size, k, max_rate)
-    if os.path.exists(cache):
-        return _load_cache(cache)
-    rng = np.random.default_rng(37)
-    anc = simulate.random_genome(rng, size, name="anc")
-    genomes, truths = [anc], []
-    # per-branch substitution rates 3%..max_rate: pairwise divergence between
-    # two derived genomes ~ sum of branch rates, plus indels
-    rates = np.linspace(0.03, max_rate, k - 1)
-    for i, s in enumerate(rates):
-        d, t = simulate.evolve(
-            anc, rng, sub_rate=float(s), ins_rate=float(s) / 10,
-            del_rate=float(s) / 10, name=f"d{i}",
-        )
-        if i % 2 == 1:  # half the genomes carry 1-2 large inversions
-            for _ in range(1 + (i % 3 == 1)):
-                # redraw until the range sits inside one forward truth piece
-                # (a second inversion must not overlap the first)
-                for _attempt in range(20):
-                    span = int(rng.integers(size // 80, size // 10))
-                    lo = int(rng.integers(1000, len(d) - span - 1000))
-                    try:
-                        d, t = simulate.apply_inversion_with_truth(
-                            d, t, lo, lo + span
-                        )
-                        break
-                    except ValueError:
-                        continue
-        genomes.append(d)
-        truths.append(t)
-    try:
-        _save_cache(cache, genomes, truths)
-    except Exception:
-        pass  # cache is an optimization only
-    return genomes, truths
+    return simulate.enterobacteria_set(size, k, max_rate, seed=37)
 
 
 def main(size: int, k: int, repeats: int, max_rate: float = 0.08):
@@ -121,25 +44,15 @@ def main(size: int, k: int, repeats: int, max_rate: float = 0.08):
         print(timing.GLOBAL.report(), file=sys.stderr, flush=True)
 
     t0 = time.time()
-    # one pass over the n-way list extracts every (0, i) map at once —
-    # per-pair projections re-walked the 40M-column alignment 8 times
-    from mauvealigner_tpu.analysis.score_alignment import pair_position_maps
+    from mauvealigner_tpu.analysis.score_alignment import score_against_truths
 
-    lens = [len(g) for g in genomes]
-    amaps = pair_position_maps(
-        res.interval_list, lens, pairs=[(0, i) for i in range(1, len(genomes))]
+    scored = score_against_truths(
+        res.interval_list, [len(g) for g in genomes], truths
     )
-    acc = []
-    for i, truth in enumerate(truths, start=1):
-        cm = pair_position_maps(truth, [lens[0], lens[i]])[(0, 1)]
-        a = amaps[(0, i)]
-        tmask = cm != 0
-        tp = int(np.sum(tmask & (a == cm)))
-        fn = int(tmask.sum()) - tp
-        fp = int(np.sum((a != 0) & (a != cm)))
-        sn = tp / max(tp + fn, 1)
-        ppv = tp / max(tp + fp, 1)
-        acc.append({"pair": f"0-{i}", "sn": round(sn, 4), "ppv": round(ppv, 4)})
+    acc = [
+        {"pair": f"{i}-{j}", "sn": round(p.sensitivity, 4), "ppv": round(p.ppv, 4)}
+        for (i, j), p in sorted(scored.pairs.items())
+    ]
     score_s = time.time() - t0
 
     # measurement protocol (round-4 lesson: 36% same-session spread made

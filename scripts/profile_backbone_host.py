@@ -2,8 +2,7 @@
 scale without any device work.
 
 Synthesizes an IntervalList + BackboneColumnSegment workload shaped like the
-9 x 4.6 Mbp headline (round 4: bb_apply 17 s + bb_rows 9 s over 830k rows)
-and times backbone_seq_coordinates / merge_coordinate_rows /
+9 x 4.6 Mbp configuration (~830k backbone rows) and times backbone_seq_coordinates / merge_coordinate_rows /
 add_unique_segments / apply_backbone / write_backbone_seq_file.
 
 Usage: python scripts/profile_backbone_host.py [n_cols_per_iv] [n_ivs]

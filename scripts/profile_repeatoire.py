@@ -1,8 +1,8 @@
 """cProfile the repeatoire config-4 host passes on the current platform.
 
 Runs config 4's exact workload twice (cold + warm) and prints the warm run's
-top host functions — the round-5 task-8 iteration harness for the ~3.9 s
-host build loop (tandem checks, pop-time subsumption, flank-job assembly).
+top host functions — the harness for the host build loop (tandem checks,
+pop-time subsumption, flank-job assembly).
 
 Usage: python scripts/profile_repeatoire.py [top_n]
 """

@@ -1,9 +1,8 @@
 """Driver contract for bench.py: one JSON line with the agreed schema.
 
-The round driver runs `python bench.py` and records the single JSON line in
-BENCH_r{N}.json; this pins the schema (metric/value/unit/vs_baseline plus the
-detail block) at a CPU-friendly genome size so schema drift is caught before
-the driver's TPU run."""
+`python bench.py` prints a single JSON line; this pins its schema
+(metric/value/unit/vs_baseline plus the detail block) at a CPU-friendly
+genome size so schema drift is caught before a run on the GPU."""
 
 import io
 import json

@@ -1,11 +1,11 @@
-"""Column-identity oracle: TPU pipeline vs the C++ reference-class pipeline.
+"""Column-identity oracle: JAX pipeline vs the C++ reference-class pipeline.
 
 native/reference_pipeline.cpp (--emit-aln) writes the exact column
 structure of its chained collinear pairwise alignment — anchors plus
 per-gap affine-traceback op strings under the shared tie convention
-(diag > up > left, open beats extend).  The TPU MauveAligner in collinear
+(diag > up > left, open beats extend).  The JAX MauveAligner in collinear
 mode must reproduce it position-for-position on the collinear pairwise
-config (VERDICT round-3 item 5; the reference XMFA writer whose semantics
+config (the reference XMFA writer whose semantics
 both realize: src/mauveAligner.cpp:702,750).
 """
 
@@ -94,15 +94,15 @@ def test_column_identity_collinear_pairwise(rng):
         )
     )
     res = aligner.align([anc, der])
-    tpu = pair_position_maps(res.interval_list, [len(anc), len(der)])[(0, 1)]
+    ours = pair_position_maps(res.interval_list, [len(anc), len(der)])[(0, 1)]
     span = np.nonzero(ref)[0]
     assert len(span) > size // 2, "oracle chain covers too little"
     lo, hi = span[0], span[-1]
-    mism = np.nonzero(ref[lo : hi + 1] != tpu[lo : hi + 1])[0]
+    mism = np.nonzero(ref[lo : hi + 1] != ours[lo : hi + 1])[0]
     assert len(mism) == 0, (
         f"{len(mism)} of {hi - lo + 1} columns differ from the C++ oracle "
         f"(first at A-position {lo + mism[0]}: ref={ref[lo + mism[0]]} "
-        f"tpu={tpu[lo + mism[0]]})"
+        f"ours={ours[lo + mism[0]]})"
     )
 
 
@@ -152,7 +152,7 @@ def _ref_map_lcbs(emit_path: str, len_a: int) -> np.ndarray:
 
 
 def test_column_identity_lcbs_with_inversion(rng):
-    """LCB-mode oracle (VERDICT round-4 item 7): breakpoint elimination +
+    """LCB-mode oracle: breakpoint elimination +
     per-LCB gapped columns must match the C++ reference-class pipeline
     position-for-position on a pairwise config with an inversion."""
     size = 150_000
@@ -193,11 +193,11 @@ def test_column_identity_lcbs_with_inversion(rng):
     )
     res = aligner.align([anc, der])
     assert len(res.lcbs) == rec["n_lcbs"], (len(res.lcbs), rec["n_lcbs"])
-    tpu = pair_position_maps(res.interval_list, [len(anc), len(der)])[(0, 1)]
+    ours = pair_position_maps(res.interval_list, [len(anc), len(der)])[(0, 1)]
     # rows are signed; compare over every A position (including unaligned)
-    mism = np.nonzero(ref[1:] != tpu[1:])[0]
+    mism = np.nonzero(ref[1:] != ours[1:])[0]
     assert len(mism) == 0, (
         f"{len(mism)} of {size} positions differ from the C++ LCB oracle "
         f"(first at A-position {1 + mism[0]}: ref={ref[1 + mism[0]]} "
-        f"tpu={tpu[1 + mism[0]]})"
+        f"ours={ours[1 + mism[0]]})"
     )

@@ -1,4 +1,4 @@
-"""Mesh-sharded ProgressiveMauve equivalence (VERDICT round-3 item 1).
+"""Mesh-sharded ProgressiveMauve equivalence.
 
 The flagship progressive pipeline under an 8-virtual-device CPU mesh must
 produce byte-identical XMFA to the single-device run: the sharded N-way
@@ -82,7 +82,7 @@ def test_mesh_progressive_threaded_ladder_identical(rng):
 
 @pytest.mark.slow
 def test_mesh_progressive_9way_halfmeg_identical(rng):
-    """VERDICT done-criterion: 8-virtual-device CPU mesh produces
+    """An 8-virtual-device CPU mesh produces
     byte-identical XMFA to single-device on a 9-way >= 500 kbp input with
     inversions."""
     genomes = _family(rng, 9, 500_000, 0.05)

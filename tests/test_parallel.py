@@ -133,7 +133,7 @@ def test_find_multi_mums_sharded_matches_single_device(rng, n_genomes, size):
 
 @pytest.mark.slow
 def test_find_multi_mums_sharded_megabase(rng):
-    """VERDICT round-1 item: the flagship N-way anchor search under a mesh
+    """The flagship N-way anchor search under a mesh
     on a >= 1 Mbp input, equivalent to single-device."""
     from mauvealigner_tpu.core.sml import build_mer_list_device
     from mauvealigner_tpu.ops import matchops

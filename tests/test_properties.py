@@ -324,9 +324,9 @@ def test_forward_backward_matches_logspace_reference(rng):
 
 
 def test_forward_backward_2state_lane_kernel_matches_generic(rng):
-    """The S=2 lane-decomposed kernel (TPU tile-layout fix: scanning
-    [B, T, 2, 2] pads each trailing 2x2 matrix to a (2, 128) tile, 64x the
-    HBM) must agree with the generic matrix formulation bit-for-float."""
+    """The S=2 lane-decomposed kernel (four [B, T] lanes instead of
+    scanning [B, T, 2, 2] tensors) must agree with the generic matrix
+    formulation bit-for-float."""
     import jax.numpy as jnp
 
     from mauvealigner_tpu.ops import hmm

@@ -36,3 +36,22 @@ def test_aligner_recovers_inversion_against_truth(rng):
     s = score_alignment(truth, res.interval_list, [len(anc), len(der)])
     assert s.sensitivity > 0.9, s.summary()
     assert s.ppv > 0.9, s.summary()
+
+
+def test_enterobacteria_set_truths_score_perfectly():
+    """The simulated set's truth alignments, scored against themselves as
+    one n-way list, give sn = ppv = 1 for every (0, i) pair."""
+    from mauvealigner_tpu.analysis.score_alignment import score_against_truths
+    from mauvealigner_tpu.core.interval import IntervalList
+    from mauvealigner_tpu.utils import simulate
+
+    genomes, truths = simulate.enterobacteria_set(30_000, 4, seed=37)
+    assert len(genomes) == 4 and len(truths) == 3
+    assert any(iv.starts[1] < 0 for iv in truths[1].intervals)  # an inversion
+    for i, t in enumerate(truths, start=1):
+        scored = score_against_truths(
+            IntervalList(genomes=[genomes[0], genomes[i]], intervals=t.intervals),
+            [len(genomes[0]), len(genomes[i])], [t],
+        )
+        p = scored.pairs[(0, 1)]
+        assert p.sensitivity == 1.0 and p.ppv == 1.0 and p.tp > 0
